@@ -1,5 +1,5 @@
-"""Merge round-5 ladder run files into BENCH_LADDER.json (the ladder
-of record).  Rows are keyed by (rung, variant, mode); later files win,
+"""Merge ladder run files (frontends/ladder.py rows) into one table.
+Rows are keyed by (rung, variant, mode); later files win,
 so re-runs supersede.  Rungs not re-run this round carry forward with
 a ``carried_from`` marker rather than silently posing as fresh."""
 

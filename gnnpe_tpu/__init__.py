@@ -1,5 +1,5 @@
-"""gnnpe_tpu — a TPU-native framework for GNN path-dominance-embedding
-exact subgraph matching, re-designed from scratch for JAX/XLA/Pallas.
+"""gnnpe_tpu — a JAX framework for GNN path-dominance-embedding exact
+subgraph matching, served on an NVIDIA GPU.
 
 Capabilities mirror the reference GNN-PE/GNN-PGE engines
 (/root/reference, VLDB 2024; arXiv 2309.15641) but the architecture is
@@ -10,7 +10,7 @@ irregular backtracking refinement lives in a native C++ host extension.
 
 Layer map (bottom → top):
   graph/      CSR graph core (ref: GNN-PE/libsrc/graph/graph.cpp)
-  ops/        device kernels: SpMM, segment ops, dominance compares, Pallas
+  ops/        device ops: SpMM layouts, segment ops, set intersection
   embed/      VDE / PDE / path-group embedding stages (ref: custom.h:492-632)
   paths/      simple-path enumeration + orientation dedup (ref: custom.h:66-119)
   index/      packed dominance index (replaces the on-disk R*-tree)

@@ -61,7 +61,7 @@ def gen_vde_device(offsets, neighbors, labels, label_table):
     """Device VDE: gather per-label features and run one aggregation hop.
     jit-compiled in one unit (eager per-op dispatch compiles each op
     separately — pathologically slow on some hosts); dtype follows
-    ``label_table`` (f32 for TPU speed)."""
+    ``label_table`` (f32 for device speed)."""
     import jax
     import jax.numpy as jnp
     from gnnpe_tpu.ops.spmm import spmm_csr

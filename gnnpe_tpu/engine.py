@@ -110,13 +110,13 @@ class PEEngine:
     def attach_mesh(self, mesh, axis: str = "graph",
                     packed: bool = False):
         """Shard the path table over ``mesh``'s ``axis`` for distributed
-        online search (the TPU form of the reference's per-partition
+        online search (the SPMD form of the reference's per-partition
         OpenMP search + serial union, main.cpp:155-172).
 
         packed=True shards the packed dominance index instead of the
         flat table: block summaries prune on device before the leaf
-        pass (index/device_packed.py) — same candidates, less HBM
-        traffic at scale.  Requires build_index(packed=True) first."""
+        pass (index/device_packed.py) — same candidates, less
+        device-memory traffic at scale.  Requires build_index(packed=True) first."""
         assert self.data_pde is not None, "call offline() + build_index()"
         if packed:
             from gnnpe_tpu.index.device_packed import DevicePackedPESearch

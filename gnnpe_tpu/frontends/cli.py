@@ -27,7 +27,8 @@ import numpy as np
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="gnnpe-tpu",
-        description="TPU-native GNN-PE/GNN-PGE subgraph matching")
+        description="GNN-PE/GNN-PGE exact subgraph matching on a GPU "
+                    "(JAX)")
     p.add_argument("-f", "--file", default="../Test/",
                    help="dataset path")
     p.add_argument("-d", "--data", default="data_graph.graph",
@@ -63,6 +64,8 @@ def main(argv=None) -> int:
     from gnnpe_tpu.graph.csr import CSRGraph
     from gnnpe_tpu.graph.partition import partition_graph, write_membership
     from gnnpe_tpu.io.artifacts import ArtifactStore
+    from gnnpe_tpu.utils.compile_cache import enable_persistent_cache
+    enable_persistent_cache()
 
     n = None if args.answers == "MAX" else int(args.answers)
     cfg_cls = PEConfig if args.variant == "pe" else PGEConfig

@@ -223,8 +223,9 @@ def run_rung(name: str, queries: int = 50, query_size: int = 8,
         assert ok, f"packed search != host oracle on query {qi}"
         return ok
 
-    # A failure here must be RECORDED, not crash away an hour-scale
-    # rung's completed measurements.
+    # A failure here is RECORDED in the row (an hour-scale rung's
+    # completed measurements must reach disk); main() then exits
+    # non-zero.
     spot_err = None
     try:
         spot_ok = pe_spot(0)
@@ -494,7 +495,7 @@ def main(argv=None):
                     help="ladder rung name or comma list")
     ap.add_argument("--queries", type=int, default=50)
     ap.add_argument("--query-size", type=int, default=8)
-    ap.add_argument("--out", default="BENCH_LADDER.json")
+    ap.add_argument("--out", default="ladder_rows.jsonl")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--max-answers", type=int, default=100_000,
                     help="refinement emission cap (ref -n flag); the "
@@ -548,7 +549,16 @@ def main(argv=None):
                                  pe_max_paths=int(args.pe_max_paths),
                                  out_path=args.out))
     print(json.dumps(all_rows))
+    failed = [f"{r['rung']}/{r['variant']}" for r in all_rows
+              if r.get("spot_error") or r.get("spot_verified") is False
+              or r.get("spot_verified_p90") is False
+              or "error" in (r.get("serving") or {})]
+    if failed:
+        print(f"[ladder] FAILED (rows written): {', '.join(failed)}",
+              file=sys.stderr)
+        return 1
+    return 0
 
 
 if __name__ == "__main__":
-    main()
+    sys.exit(main())

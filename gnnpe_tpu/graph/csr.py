@@ -28,7 +28,7 @@ import numpy as np
 
 @dataclass
 class CSRGraph:
-    """Undirected labeled graph in CSR form (int32 ids for TPU friendliness).
+    """Undirected labeled graph in CSR form (int32 ids, the device index type).
 
     offsets:   int32[V+1]  row pointers
     neighbors: int32[2E]   column indices, sorted ascending within each row

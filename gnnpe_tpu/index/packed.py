@@ -1,8 +1,8 @@
-"""Packed dominance index — the TPU-era replacement for the disk R*-tree.
+"""Packed dominance index — the array replacement for the disk R*-tree.
 
 The reference builds a page-based R*-tree over path embeddings and
 walks it best-first with a heap (custom.h:196-490; rtree/rtnode.cpp).
-On TPU the idiomatic equivalent is **not a pointer tree** (SURVEY.md
+On an accelerator the idiomatic equivalent is **not a pointer tree** (SURVEY.md
 §7.1.3): entries are sorted into blocks, per-block summaries are folded
 with segment-min/max, and queries evaluate masked vector compares
 against all block summaries at once, then only descend into surviving

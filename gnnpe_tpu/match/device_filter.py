@@ -1,10 +1,11 @@
 """Device-side candidate filtering (jit / shard_map).
 
-The flat dominance filter is a dense masked compare — exactly what the
-VPU eats (SURVEY.md §7.1.3).  TPUs have no f64 ALU, but the filter's
-comparisons can still be **bit-exact f64** on device via a three-limb
-f32 split (below); the f32-with-inflated-epsilon superset path is kept
-for the training/approximate modes.
+The flat dominance filter is a dense masked compare — vector work
+(SURVEY.md §7.1.3).  The comparisons are **bit-exact f64** on device
+via a three-limb f32 split (below), which needs no f64 arithmetic; the
+f32-with-inflated-epsilon superset path is kept for the
+training/approximate modes.  The GPU has f64 compares, so whether the
+limbs still earn their bytes there is open (ROADMAP Design 2).
 
 Exact f64 comparison on an f32 machine (``split3`` / ``ge3``):
 an f64 value x (52 mantissa bits) splits into three f32 limbs
@@ -20,7 +21,7 @@ same way, so the device decision is bit-identical to the reference's
 f64 compare (custom.h:410-434) — no superset, no re-verification.
 
 Sharded search: data paths split across the mesh's "graph" axis, each
-device computes its mask shard, results concatenate — the TPU analogue
+device computes its mask shard, results concatenate — the SPMD analogue
 of the reference's per-partition OpenMP search + serial union
 (GNN-PE/src/main.cpp:155-172).
 """
@@ -55,7 +56,7 @@ def split3(x: np.ndarray) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
 
 def ge3(a_hi, a_mid, a_lo, b_hi, b_mid, b_lo):
     """Elementwise exact-f64 ``a >= b`` from three-limb f32 operands
-    (device, VPU compares only)."""
+    (device, f32 compares only)."""
     hi_gt = a_hi > b_hi
     hi_eq = a_hi == b_hi
     mid_gt = a_mid > b_mid
@@ -105,7 +106,7 @@ def _jit_pe_mask_exact():
 def pe_candidates_device(data_pde, q_pde, plan_rows: np.ndarray,
                          num_query_vertices: int,
                          base_epsilon: float = 1e-6) -> List[np.ndarray]:
-    """TPU candidate generation: device mask (bit-exact f64 decisions
+    """Device candidate generation: device mask (bit-exact f64 decisions
     via limb splitting), host extraction.  Candidate sets are identical
     to the f64 host filter (match.filter.pe_candidates)."""
     import jax.numpy as jnp
@@ -147,7 +148,7 @@ def pe_mask_sharded(mesh, d_labels, d_degrees, d_pde,
                     axis: str = "graph"):
     """shard_map'd mask: data paths sharded on ``axis`` along their
     leading dim, query replicated; output mask bool[Q, P] sharded along
-    its second (path) dim — the TPU form of the reference's
+    its second (path) dim — the SPMD form of the reference's
     per-partition parallel search (main.cpp:160-164).  Pad P to a
     multiple of the axis size before calling."""
     import jax

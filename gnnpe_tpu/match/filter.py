@@ -7,8 +7,9 @@ pair passing the leaf test passes all its ancestors' label-MBR and
 upper-bound dominance checks, and the heap's early-exit can only fire
 inside the ε-slack band (Q_map keys satisfy key ≥ node_key − D·ε by the
 traversal filter itself).  The candidate set therefore equals a flat
-filter over all pairs — a dense masked compare that is the natural TPU
-formulation (VPU-friendly; batched over query paths).  The packed-box
+filter over all pairs — a dense masked compare that is the natural
+accelerator formulation (vector compares batched over query paths).
+The packed-box
 hierarchy in gnnpe_tpu.index prunes the same filter for huge path sets.
 
 Leaf-test semantics (must match exactly):

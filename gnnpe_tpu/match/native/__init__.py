@@ -29,7 +29,8 @@ def _build_dir() -> str:
     return d
 
 
-def _load() -> ctypes.CDLL:
+def load() -> ctypes.CDLL:
+    """Build (if stale) and load the extension library."""
     global _LIB
     with _LOCK:
         if _LIB is not None:
@@ -70,7 +71,7 @@ def explore_native(data_graph, query_graph, candidates: List[np.ndarray],
                    ) -> Union[int, Tuple[int, np.ndarray]]:
     """Run the C++ explorer.  With max_emit > 0, also returns up to that
     many embeddings (int32[n, |Vq|], query-vertex-id indexed)."""
-    lib = _load()
+    lib = load()
     nq = query_graph.num_vertices
     bn_off = np.zeros(nq + 1, dtype=np.int32)
     for i, b in enumerate(bn):

@@ -27,7 +27,7 @@ Answer-count contract — mode-dependent:
     Do not enable preverify when bit-parity with shipped GNN-PE
     output is required.
 
-TPU form: stack the candidate indicator vectors into C ∈ {0,1}^[V, Q];
+Array form: stack the candidate indicator vectors into C ∈ {0,1}^[V, Q];
 one neighbor aggregation (the same SpMM as the embedding stage) gives
 reach = A @ C, and the update is
     C[v, q] &= ∀ q' ∈ N(q): reach[v, q'] > 0

@@ -9,13 +9,16 @@ flag, and edge checks against the backward neighbors.
 Irregular backtracking is the one stage kept off-device (SURVEY.md
 §7.1.4).  Two engines:
   * native C++ extension (gnnpe_tpu.match.native) — production path;
-  * pure-Python fallback (this file) — reference semantics, used when
-    the extension can't build.
+  * pure-Python engine (this file) — reference semantics; ``auto``
+    falls back to it, with a warning, only when the extension cannot
+    be built or loaded.
 Both produce identical counts; tests run both on the Test graphs.
 """
 
 from __future__ import annotations
 
+import subprocess
+import warnings
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -41,8 +44,17 @@ def refinement(data_graph: CSRGraph, query_graph: CSRGraph,
     bn = generate_bn(query_graph, order, pivot)
 
     if engine in ("auto", "native"):
+        from gnnpe_tpu.match.native import explore_native, load
         try:
-            from gnnpe_tpu.match.native import explore_native
+            load()
+        except (OSError, subprocess.CalledProcessError) as exc:
+            # Only a failed build or load of the extension falls back;
+            # errors inside the engine propagate.
+            if engine == "native":
+                raise
+            warnings.warn(f"native refinement engine unavailable "
+                          f"({exc!r}); using the Python engine")
+        else:
             if not return_embeddings:
                 return explore_native(data_graph, query_graph, candidates,
                                       order, pivot, bn, max_answers)
@@ -56,9 +68,6 @@ def refinement(data_graph: CSRGraph, query_graph: CSRGraph,
             return explore_native(data_graph, query_graph, candidates,
                                   order, pivot, bn, max_answers,
                                   max_emit=count)
-        except Exception:
-            if engine == "native":
-                raise
     return _explore_python(data_graph, query_graph, candidates, order,
                            pivot, bn, max_answers, return_embeddings)
 

@@ -99,7 +99,7 @@ class PathGNN:
 
         src/dst: int32[E] directed arcs.  ``aggregate`` overrides the
         neighbor-sum (the distributed layer passes a halo-exchanging
-        version; the Pallas path passes the kernel)."""
+        version; the binned layout passes its gather tables)."""
         from gnnpe_tpu.ops.spmm import neighbor_sum
         agg = aggregate or (
             lambda h: neighbor_sum(src, dst, h, num_vertices))
@@ -108,7 +108,11 @@ class PathGNN:
             ws = self._pos(params.w_self[i])
             wn = self._pos(params.w_nbr[i])
             b = self._pos(params.bias[i]) if self.nonneg else params.bias[i]
-            h = self._act(h @ ws + agg(h) @ wn + b)
+            # HIGHEST: f32 products, not TF32, so the same embeddings
+            # come out on the CPU and on a GPU.
+            hi = jax.lax.Precision.HIGHEST
+            h = self._act(jnp.matmul(h, ws, precision=hi)
+                          + jnp.matmul(agg(h), wn, precision=hi) + b)
         return h
 
     def path_embeddings(self, params: PathGNNParams, labels, src, dst,

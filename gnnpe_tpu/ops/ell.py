@@ -1,8 +1,6 @@
 """Hierarchical ELLPACK aggregation: scatter-free neighbor sums.
 
-XLA's TPU scatter serializes (segment_sum ≈ 6e7 edges/s on v5e) while
-its row gather streams ~5× faster.  This layout removes the scatter
-entirely: neighbors are packed into fixed-width tables and the
+This layout removes the scatter from the neighbor sum: neighbors are packed into fixed-width tables and the
 aggregation becomes dense gathers + axis sums.
 
 Level structure (power-law safe): each vertex's adjacency is split
@@ -126,11 +124,12 @@ def ell_neighbor_sum(layout: HierarchicalEll, x):
 # ---------------------------------------------------------------------
 # Degree-binned relabeled ELL ("sliced ELL"): the production layout.
 #
-# Calibration on v5e (bench methodology): XLA's row gather runs at
-# ~7e8 rows/s with dst-locality while scatter (segment_sum) serializes
-# at ~6e7 rows/s, and the uniform-width ELL above pays its padding
-# ratio (2.4x on power-law graphs) directly in throughput.  This
-# layout removes both costs:
+# It was chosen where XLA's scatter (segment_sum) ran an order of
+# magnitude slower than its row gather; the uniform-width ELL above
+# also pays its padding ratio (2.4x on power-law graphs) directly in
+# throughput.  Whether either still holds on the GPU is what
+# chip_smoke.py's SpMM phase times (ROADMAP Design 5).  This layout
+# removes both costs:
 #   * vertices are RELABELED in degree-descending order, so
 #     same-width classes are contiguous output ranges — every class
 #     result concatenates in place, no scatter and no inverse permute
@@ -143,20 +142,60 @@ def ell_neighbor_sum(layout: HierarchicalEll, x):
 #   * degrees above the widest class are chunked and folded through a
 #     small recursive second level (only the power-law head pays it).
 
-# Width classes: v5e sweeps (round 1 + round 2, PROGRESS: width_sweep).
-# Finer classes cut padding but pay per-op dispatch; (4,8,16,32,64) is
-# the measured optimum at D=128 on the power-law bench.  With the hub
-# path on, the hub extraction empties the ≥64 tail anyway, so the
-# choice only matters for hub_matmul=False graphs (round-2 sweep:
-# width sets beyond this are within run-to-run noise, ±10%).
+# Width classes: finer classes cut padding but pay per-op dispatch.
+# (4,8,16,32,64) was the best of earlier sweeps at D=128 on the
+# power-law bench; it is unmeasured on the GPU.  With the hub path on,
+# the hub extraction empties the ≥64 tail anyway, so the choice only
+# matters for hub_matmul=False graphs.
 DEFAULT_WIDTHS = (4, 8, 16, 32, 64)
 
 _HUB_PRECISIONS = ("hi_lo", "bf16", "f32")
 
 
+def _split_hi_lo(x):
+    """f32 → (hi, lo) bf16 pair with hi + lo = x to ~2^-16 relative.
+
+    hi is x with its low 16 bits cleared, made by bit masking, so it
+    is exact in bf16 and lo = x - hi is exact in f32.  A bf16 round
+    trip (x.astype(bf16).astype(f32)) would not do: XLA may drop that
+    round trip as excess precision (the GPU default), leaving lo = 0
+    and the sum at bf16 accuracy."""
+    import jax
+    import jax.numpy as jnp
+    bits = jax.lax.bitcast_convert_type(x.astype(jnp.float32), jnp.uint32)
+    hi = jax.lax.bitcast_convert_type(bits & jnp.uint32(0xFFFF0000),
+                                      jnp.float32)
+    return hi.astype(jnp.bfloat16), (x - hi).astype(jnp.bfloat16)
+
+
+def _hub_matmul(B, xh, precision, out_dtype):
+    """Σ_j B[:, j] * xh[j] on the matrix units (see BinnedEll hub-path
+    notes).  B holds integer multiplicities; counts ≤ 256 are exact in
+    bf16."""
+    import jax
+    import jax.numpy as jnp
+    dims = (((1,), (0,)), ((), ()))
+    if precision == "f32":
+        return jax.lax.dot_general(
+            B.astype(jnp.float32), xh.astype(jnp.float32), dims,
+            precision=jax.lax.Precision.HIGHEST,
+            preferred_element_type=jnp.float32).astype(out_dtype)
+    Bb = B.astype(jnp.bfloat16)
+    if precision == "hi_lo" and xh.dtype != jnp.bfloat16:
+        hi, lo = _split_hi_lo(xh)
+        out = (jax.lax.dot_general(Bb, hi, dims,
+                                   preferred_element_type=jnp.float32)
+               + jax.lax.dot_general(Bb, lo, dims,
+                                     preferred_element_type=jnp.float32))
+    else:
+        out = jax.lax.dot_general(Bb, xh.astype(jnp.bfloat16), dims,
+                                  preferred_element_type=jnp.float32)
+    return out.astype(out_dtype)
+
+
 @dataclass
 class BinnedEll:
-    """Permutation-fused binned layout (+ optional MXU hub path).
+    """Permutation-fused binned layout (+ optional matmul hub path).
 
     apply_perm(h_perm) aggregates in the permuted vertex space:
     h_perm[i] = x[perm[i]]; returns out_perm with out_perm[i] =
@@ -165,15 +204,13 @@ class BinnedEll:
     Mask-free padding: pad slots in every gather table point at row 0,
     and the spurious contribution is removed with a rank-1 correction
     ``out[i] -= padcnt[i] * buf[0]``.  This replaces the per-slot
-    where-mask (a [n, w, D] select) with a [n, D] fused multiply-sub;
-    measured on v5e it lifts the power-law bench from 338 to 384
-    M edges/s (round-2 calibration).
+    where-mask (a [n, w, D] select) with a [n, D] fused multiply-sub.
 
-    Hub path: the v5e gather unit is row-count-bound (~5.2e8 rows/s at
-    D=128, BASELINE.md calibration), so on power-law graphs the few
-    hundred highest-occurrence *sources* — which account for ~25% of
-    all arcs — are pulled out of the gather tables entirely and their
-    contribution computed on the MXU as ``B @ x[hubs]`` where
+    Hub path: a row gather pays per row, so on power-law graphs the
+    few hundred highest-occurrence *sources* — which account for ~25%
+    of all arcs — are pulled out of the gather tables entirely and
+    their contribution computed by the matrix units as
+    ``B @ x[hubs]`` where
     ``B[i, j]`` counts hub j in N(perm[i]) (int8/int16, converted to
     bf16 in-register).  Removing hubs also shrinks residual degrees,
     cutting ELL padding.
@@ -199,31 +236,16 @@ class BinnedEll:
     num_head: int               # head vertices (first rows of output)
     num_vertices: int
     num_slots: int              # gather slots over RESIDUAL (non-hub) arcs
-    num_hub_arcs: int = 0       # arcs routed through the MXU hub path
+    num_hub_arcs: int = 0       # arcs routed through the matmul hub path
     hub_rows: np.ndarray = None     # int32[H]: permuted rows of hubs
     hub_counts: np.ndarray = None   # int8/int16[V, H] multiplicity B
     hub_precision: str = "hi_lo"    # see class docstring
 
     def _hub_part(self, h_perm):
-        import jax
         import jax.numpy as jnp
         xh = jnp.take(h_perm, jnp.asarray(self.hub_rows), axis=0)
-        B = jnp.asarray(self.hub_counts)
-        dims = (((1,), (0,)), ((), ()))
-        if self.hub_precision == "f32":
-            return jax.lax.dot_general(
-                B.astype(jnp.float32), xh.astype(jnp.float32), dims,
-                precision=jax.lax.Precision.HIGHEST,
-                preferred_element_type=jnp.float32)
-        Bb = B.astype(jnp.bfloat16)   # counts ≤ 256 are exact in bf16
-        hi = xh.astype(jnp.bfloat16)
-        out = jax.lax.dot_general(Bb, hi, dims,
-                                  preferred_element_type=jnp.float32)
-        if self.hub_precision == "hi_lo" and h_perm.dtype != jnp.bfloat16:
-            lo = (xh - hi.astype(xh.dtype)).astype(jnp.bfloat16)
-            out = out + jax.lax.dot_general(
-                Bb, lo, dims, preferred_element_type=jnp.float32)
-        return out.astype(h_perm.dtype)
+        return _hub_matmul(jnp.asarray(self.hub_counts), xh,
+                           self.hub_precision, h_perm.dtype)
 
     @staticmethod
     def _gather_sum(buf, tbl, padcnt):
@@ -265,26 +287,19 @@ class BinnedEll:
         return self.unpermute(self.apply_perm(self.permute(h)))
 
 
-def _device_constants():
-    """(hbm_bytes_per_s, bf16_flops_per_s, gather_s_per_row) —
-    MEASURED once per machine via utils.device_probe (micro-probes
-    with the paired-difference harness), with the round-2 table as a
-    fallback (VERDICT r2 item 9: no more hardcoded per-kind tuples)."""
-    from gnnpe_tpu.utils.device_probe import device_constants
-    return device_constants()
-
-
 def _select_hubs(num_v: int, neighbors: np.ndarray, feature_dim: int,
                  max_hubs: int, hub_mem_budget: int):
-    """Pick hub sources worth routing through the MXU.
+    """Pick hub sources worth routing through the matrix units.
 
     Include vertex i (by occurrence count in ``neighbors``) while the
-    gather time its arcs would cost (per-row cost from the device
-    calibration table) exceeds the marginal cost of one more B column:
-    V int8 bytes of HBM traffic plus two bf16 [V,1]x[1,D] matmul
-    slivers.  The hub count is additionally capped so the dense B
-    matrix fits ``hub_mem_budget`` bytes (int8 on device)."""
-    bw, flops, gather_row_s = _device_constants()
+    gather time its arcs would cost (per-row cost from the device's
+    published peaks, utils/device_probe) exceeds the marginal cost of
+    one more B column: V int8 bytes of memory traffic plus two bf16
+    [V,1]x[1,D] matmul slivers.  The hub count is additionally capped
+    so the dense B matrix fits ``hub_mem_budget`` bytes (int8 on
+    device)."""
+    from gnnpe_tpu.utils.device_probe import device_constants
+    bw, flops, gather_row_s = device_constants(feature_dim)
     occ = np.bincount(neighbors, minlength=num_v).astype(np.int64)
     col_cost_s = num_v / bw + 4.0 * num_v * feature_dim / flops
     thresh = max(4.0, col_cost_s / gather_row_s)
@@ -310,7 +325,7 @@ def build_binned_ell(offsets: np.ndarray, neighbors: np.ndarray,
     """Build the degree-binned relabeled layout (host, O(E log V)).
 
     With ``hub_matmul`` the top-occurrence sources are lifted out of
-    the gather tables into a dense count matrix contracted on the MXU
+    the gather tables into a dense count matrix contracted by a matmul
     (see BinnedEll docstring); the ELL tables are then built over the
     residual adjacency.  ``feature_dim_hint`` only tunes the hub-count
     economics; any D works at apply time.  ``hub_mem_budget`` caps the
@@ -343,7 +358,7 @@ def build_binned_ell(offsets: np.ndarray, neighbors: np.ndarray,
             is_hub = j >= 0
             num_hub_arcs = int(is_hub.sum())
             # Sparse count build: O(hub_arcs) transient memory, then a
-            # single dense int8/int16 [V, H] fill (the matrix the MXU
+            # single dense int8/int16 [V, H] fill (the matrix the matmul
             # needs anyway, capped by hub_mem_budget in _select_hubs).
             key = arc_dst[is_hub] * nh + j[is_hub]
             uk, cnt = np.unique(key, return_counts=True)

@@ -3,14 +3,14 @@
 The reference carries three SIMD intersection stacks (AVX2/AVX512
 merge + galloping in libsrc/utility/computesetintersection.cpp, bitset
 kernels in bitsetoperation.cpp, QFilter/BSR in han/intersection_algos
-.cpp) — all compiled but unreachable from main (SURVEY.md §2.1).  The
-TPU framework makes them first-class: candidate-set intersection is
+.cpp) — all compiled but unreachable from main (SURVEY.md §2.1).  This
+framework makes them first-class: candidate-set intersection is
 the core of device-side pre-verification (intersecting a candidate set
 with a vertex's adjacency before shipping candidates to host
 refinement, SURVEY.md §7.3).
 
-TPU mapping:
-  * merge/galloping SIMD → vectorized ``searchsorted`` on the VPU —
+Device mapping:
+  * merge/galloping SIMD → vectorized ``searchsorted`` —
     one binary-search wave per element, no data-dependent control flow;
   * BSR/bitset → uint32 lane masks: a vertex set over [0, V) packs to
     ``uint32[V/32]``; intersection is ``&``, cardinality is popcount;
@@ -50,8 +50,8 @@ def intersect_mask(a, a_valid, b, b_valid):
 
     a: int32[N] padded array, a_valid: bool[N];
     b: int32[M] SORTED padded array (pad with INT32_MAX so order is
-    kept), b_valid: bool[M].  Returns bool[N] membership mask — the VPU
-    form of the merge intersection (one searchsorted wave, no loops).
+    kept), b_valid: bool[M].  Returns bool[N] membership mask — the
+    vector form of the merge intersection (one searchsorted wave, no loops).
     """
     import jax.numpy as jnp
     m = b.shape[0]
@@ -104,7 +104,7 @@ def bitset_count(bits):
     """Device: popcount over the packed set (uint32 lanes)."""
     import jax.numpy as jnp
     v = jnp.asarray(bits, dtype=jnp.uint32)
-    # SWAR popcount — VPU-friendly, no lookup tables.
+    # SWAR popcount — vector-friendly, no lookup tables.
     v = v - ((v >> 1) & jnp.uint32(0x55555555))
     v = (v & jnp.uint32(0x33333333)) + ((v >> 2) & jnp.uint32(0x33333333))
     v = (v + (v >> 4)) & jnp.uint32(0x0F0F0F0F)

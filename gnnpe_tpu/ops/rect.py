@@ -4,10 +4,10 @@ The production single-chip layout (ops/ell.py BinnedEll) assumes a
 square aggregation (input rows == output rows) and fuses its vertex
 permutation across layers.  The sharded halo path needs the
 RECTANGULAR generalization: each device aggregates arcs whose sources
-live in an *extended* buffer (own rows + halo rows received over ICI)
+live in an *extended* buffer (own rows + halo rows received from peers)
 into its own output rows — input space ≠ output space.  This module
 builds that layout with the same scatter-free recipe (degree classes,
-head chunk-fold, mask-free pads, optional MXU hub matmul) plus two
+head chunk-fold, mask-free pads, optional hub matmul) plus two
 things the SPMD composition needs:
 
   * an explicit zero-degree tail (most rows of a halo-arc group have
@@ -27,7 +27,7 @@ space can safely BE the per-device row space.
 
 Reference contract being scaled: the aggregation is gen_vde's
 neighbor sum (GNN-PE/include/custom.h:513-544) in its distributed,
-trainable form (SURVEY.md §2.3 "TPU-native plan").
+trainable form (SURVEY.md §2.3).
 """
 
 from __future__ import annotations
@@ -38,30 +38,9 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 
 from gnnpe_tpu.ops.ell import DEFAULT_WIDTHS, _HUB_PRECISIONS, \
-    _padcnt, _select_hubs
+    _hub_matmul, _padcnt, _select_hubs
 
 _FOLD_W = 8     # head chunk-fold width (matches BinnedEll)
-
-
-def _hub_matmul(B, xh, precision, out_dtype):
-    """Σ_j B[:, j] * xh[j] on the MXU (see BinnedEll hub-path notes)."""
-    import jax
-    import jax.numpy as jnp
-    dims = (((1,), (0,)), ((), ()))
-    if precision == "f32":
-        return jax.lax.dot_general(
-            B.astype(jnp.float32), xh.astype(jnp.float32), dims,
-            precision=jax.lax.Precision.HIGHEST,
-            preferred_element_type=jnp.float32).astype(out_dtype)
-    Bb = B.astype(jnp.bfloat16)
-    hi = xh.astype(jnp.bfloat16)
-    out = jax.lax.dot_general(Bb, hi, dims,
-                              preferred_element_type=jnp.float32)
-    if precision == "hi_lo" and xh.dtype != jnp.bfloat16:
-        lo = (xh - hi.astype(xh.dtype)).astype(jnp.bfloat16)
-        out = out + jax.lax.dot_general(
-            Bb, lo, dims, preferred_element_type=jnp.float32)
-    return out.astype(out_dtype)
 
 
 def _gather_sum(buf, tbl, padcnt):

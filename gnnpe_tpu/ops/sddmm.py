@@ -3,12 +3,9 @@ kernel family, BASELINE.json; VERDICT r2 "missing #2").
 
 SDDMM (sampled dense-dense matmul): per-arc scores
 ``s[e] = <x[src_e], y[dst_e]>`` — the score kernel of attention-style
-GNNs (GAT / transformer-conv).  On v5e the binding resource for any
-arc-indexed op is the gather engine's row rate (BASELINE.md; the
-blocked-DMA Pallas alternative measures 10× slower,
-experiments/pallas_blocked_spmm.py), so the production SDDMM is
-expressed as gathers + a row-wise dot, which XLA fuses — there is no
-scatter anywhere in the forward path.
+GNNs (GAT / transformer-conv).  The SDDMM is expressed as gathers +
+a row-wise dot, which XLA fuses — there is no scatter anywhere in the
+forward path.
 
 The full attention layer composes three scatter-free pieces over ONE
 uniform ELL layout (ops/ell.build_ell, whose level-1 slots carry the

@@ -6,10 +6,9 @@ SpMM ``A @ X`` so the same kernel family serves:
   * parity mode — the fixed label-seeded features, f64 on host;
   * training mode — message-passing layers under jit/grad, f32/bf16 on
     device (see gnnpe_tpu.models.gnn), with the scatter-free binned-ELL
-    layout in gnnpe_tpu.ops.ell as the production hot path (a Pallas
-    per-row-DMA kernel was tried and retired to experiments/pallas_spmm
-    — 33 M edges/s vs 368 M for binned ELL; per-row DMA descriptors
-    cannot approach the gather engine's ~1.9 ns/row).
+    layout in gnnpe_tpu.ops.ell as the alternative layout; which of the
+    two is faster on the GPU is what chip_smoke.py's SpMM phase
+    times.
 
 Conventions: the adjacency is unweighted and symmetric; ``A @ X`` with
 binary A is exactly the neighbor feature sum.
@@ -77,8 +76,8 @@ def segment_spmm(src, dst, values, x, num_vertices: int):
 
 
 def spmm_csr(offsets, neighbors, x):
-    """CSR SpMM via COO segment-sum (XLA fuses the gather+scatter well
-    on TPU for moderate E; use ops.ell.BinnedEll for the hot path)."""
+    """CSR SpMM via COO segment-sum (see ops.ell.BinnedEll for the
+    scatter-free layout)."""
     import jax.numpy as jnp
     num_vertices = offsets.shape[0] - 1
     deg = jnp.diff(offsets)

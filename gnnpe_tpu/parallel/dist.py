@@ -1,11 +1,11 @@
 """Distributed message passing and training over a device mesh.
 
-Strategy (SURVEY.md §2.3 "TPU-native plan"):
+Strategy (SURVEY.md §2.3):
   * the data graph's directed arcs are sharded across the "graph" mesh
     axis (edge partitioning — replaces the reference's METIS vertex
     partitioning for the compute path);
   * each device aggregates its arc shard into a full-width vertex
-    buffer, then partial sums combine with ``psum`` over ICI — the
+    buffer, then partial sums combine with ``psum`` — the
     collective form of scatter-add;
   * path minibatches shard over the "batch" axis (DP); gradients psum
     over both axes.
@@ -55,7 +55,7 @@ def distributed_neighbor_sum(mesh: Mesh, src_shards, dst_shards, x,
                              num_vertices: int, axis: str = "graph"):
     """Edge-parallel aggregation: out[v] = Σ_{(u→v)} x[u], with arc
     shards on the mesh's graph axis and x replicated.  The psum is the
-    only collective — it rides ICI."""
+    only collective."""
 
     @functools.partial(
         jax.shard_map, mesh=mesh,
@@ -87,7 +87,7 @@ def make_distributed_train_step(model: PathGNN, mesh: Mesh,
       * ``"binned_halo"`` — the production path
         (``parallel.binned_halo.BinnedHaloPlan``): same exchange, but
         local/halo arcs aggregate through the scatter-free binned-ELL
-        tables with MXU hub matmuls, and the all_to_all is issued
+        tables with hub matmuls, and the all_to_all is issued
         before the local gathers so it overlaps them.
 
     Halo backends take ``plan`` (pre-built for this graph+shard count)

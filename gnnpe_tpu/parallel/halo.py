@@ -7,7 +7,7 @@ from SURVEY.md §2.3/§5: vertices are partitioned across the mesh, each
 device owns its feature rows, and one ``all_to_all`` moves only the
 boundary rows the neighbors actually need (O(cut·D)); aggregation then
 runs entirely on local arc lists.  With a decent partitioner the cut
-is a small fraction of V and the exchange rides ICI.
+is a small fraction of V.
 
 Layout (host-built once per graph+mesh, ``HaloPlan.build``):
   * vertices are assigned to ``n`` contiguous ranges after permutation

@@ -3,7 +3,9 @@
 The distributed layer is a new first-class component — the reference is
 single-process with OpenMP over partitions and no communication backend
 at all (SURVEY.md §2.3).  Scaling here follows the JAX SPMD recipe:
-pick a mesh, annotate shardings, let XLA insert collectives over ICI.
+pick a mesh, annotate shardings, let XLA insert the collectives.  On a
+GPU host every card reaches every other over NVLink at the same rate,
+so a mesh's shape follows the algorithm alone.
 
 Axes:
   "graph" — edge shards of the data graph (aggregation partial sums
@@ -27,7 +29,7 @@ def make_mesh(n_devices: Optional[int] = None,
 
     With 2 axes and no explicit shape, factor n as (graph, batch) with
     the graph axis taking the larger factor (aggregation partial sums
-    ride ICI; batch gradients all-reduce less often)."""
+    combine every layer; batch gradients all-reduce less often)."""
     devs = jax.devices()
     n = n_devices or len(devs)
     devs = devs[:n]

@@ -3,7 +3,7 @@
 The reference parallelizes the online search with one OpenMP thread per
 METIS partition, each filling a private candidate set, merged serially
 afterwards (GNN-PE/src/main.cpp:155-172, GNN-PGE/src/main.cpp:342-346).
-The TPU-native form shards the *entry table* (paths for PE, vertices
+The SPMD form shards the *entry table* (paths for PE, vertices
 for PGE) across the mesh's "graph" axis and runs the dominance filter
 as one shard_map'd masked compare; the union is either
 
@@ -11,7 +11,7 @@ as one shard_map'd masked compare; the union is either
     shards (out_specs P(None, axis)) and the host extracts candidates;
   * ``union="device"` — each device scatters its hits into a
     bool[Qv, V] vertex bitmap and the bitmaps OR-combine with a psum
-    over ICI — the collective form of the reference's serial set union.
+    — the collective form of the reference's serial set union.
     O(Qv·V) output regardless of path count; the right choice at scale
     (P ~ 10^8 makes the pair mask itself the bottleneck).
 

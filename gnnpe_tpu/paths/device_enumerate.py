@@ -3,7 +3,7 @@
 The host enumerator (paths/enumerate.py) materializes each frontier in
 numpy.  At ladder scale (patents/synth100m, BASELINE.md) the frontier
 is hundreds of millions of rows and the expansion is exactly the kind
-of regular gather/compare work the TPU eats — so this module runs the
+of regular gather/compare work an accelerator does well — so this module runs the
 hop on device with XLA-static shapes (SURVEY.md §7.3 "capped-buffer +
 overflow-spill"):
 

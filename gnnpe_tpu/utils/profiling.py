@@ -2,7 +2,7 @@
 
 The reference's tracing is inline chrono spans printed via cout
 (SURVEY.md §5) — stage timers here are gnnpe_tpu.utils.timers.  This
-module adds the TPU-era pieces:
+module adds the device-side pieces:
 
   * :func:`trace` — jax.profiler wrapper producing TensorBoard-
     loadable traces of a region (XLA op breakdown, HBM usage);

@@ -1,5 +1,5 @@
-"""Aggregation-op tests: ELL layout, Pallas kernel (interpret mode),
-and the device filter — all against the host ground truth."""
+"""Aggregation-op tests: ELL layouts and the device filter — all
+against the host ground truth."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -51,26 +51,6 @@ def test_ell_isolated_vertices():
     lay = build_ell(g.offsets, g.neighbors, width=8)
     out = np.asarray(lay.apply(jnp.ones((5, 4), jnp.float32)))
     assert (out[2:] == 0).all() and out[0, 0] == 1.0
-
-
-def test_pallas_spmm_interpret(rand_graph):
-    """The retired per-row-DMA Pallas SpMM (experiments/pallas_spmm:
-    33 M edges/s vs 368 M for binned ELL on v5e) stays correct so its
-    measurement record remains reproducible."""
-    import importlib.util
-    import pathlib
-    spec = importlib.util.spec_from_file_location(
-        "pallas_spmm", pathlib.Path(__file__).resolve().parents[1]
-        / "experiments" / "pallas_spmm.py")
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    rng = np.random.RandomState(2)
-    x = rng.rand(300, 128).astype(np.float32)
-    want = _ref_agg(rand_graph, x)
-    got = np.asarray(mod.spmm_pallas(rand_graph.offsets,
-                                     rand_graph.neighbors,
-                                     jnp.asarray(x), interpret=True))
-    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
 
 
 def test_device_filter_exact_and_count(data_graph, query_graph):
@@ -269,7 +249,7 @@ def test_symmetric_aggregate_gradient(rand_graph):
 
 
 def test_rect_binned_hub_forced():
-    """Rectangular binned layout with the MXU hub path ENGAGED (a
+    """Rectangular binned layout with the matmul hub path ENGAGED (a
     skewed source distribution forces hub selection) must equal the
     dense aggregation — regression for the round-3 hub-rows-not-in-
     order-space bug."""
@@ -340,18 +320,3 @@ def test_sddmm_attention_matches_dense():
         layout, jnp.asarray(src), jnp.asarray(dst_arc),
         jnp.asarray(xk), jnp.asarray(xq), jnp.asarray(xv)))
     np.testing.assert_allclose(full, want, rtol=1e-4, atol=1e-5)
-
-
-def test_pallas_blocked_spmm_interpret():
-    """The blocked-DMA experiment stays correct (interpret mode)."""
-    import jax.numpy as jnp
-    import sys, pathlib
-    sys.path.insert(0, str(pathlib.Path(__file__).parent.parent))
-    from experiments.pallas_blocked_spmm import blocked_gather_sum
-    rng = np.random.RandomState(0)
-    x = jnp.asarray(rng.rand(64, 8).astype(np.float32))
-    tbl = rng.randint(0, 64, (128, 4)).astype(np.int32)
-    got = np.asarray(blocked_gather_sum(x, tbl, tile_r=64,
-                                        interpret=True))
-    want = np.asarray(x)[tbl.reshape(-1)].reshape(128, 4, 8).sum(1)
-    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)

@@ -421,54 +421,67 @@ def test_pge_chunked_label_prune_parity(data_graph, query_graph,
     assert rd.answer_count == r.answer_count
 
 
-def test_streamed_cache_union_and_eviction(data_graph, query_graph,
-                                           golden_meta, monkeypatch):
-    """Streamed-mode leaf-block cache (VERDICT r4 item 1): with a
-    budget of ~2 chunks the cache must evict under LRU and still
-    produce golden candidates; a repeat query must record hits; the
-    device-bitmap union (VERDICT r4 item 4) must equal the host union
+def test_streamed_cache_union_and_eviction(monkeypatch):
+    """Streamed-mode leaf-block cache on a generated graph: with a
+    budget of ~2 chunks the cache must evict under LRU inside one
+    search (the query survives ~10 chunks of blocks per shard) and
+    still produce the flat f64 oracle's candidates; a repeat query
+    must record hits; the device-bitmap union must equal the oracle
     both WITH the cache and with it disabled (per-chunk uploads)."""
     from gnnpe_tpu.config import PEConfig
+    from gnnpe_tpu.embed.pde import gen_pde, gen_query_pde_table
     from gnnpe_tpu.engine import PEEngine
     from gnnpe_tpu.index.device_packed import DevicePackedPESearch
-    eng = PEEngine(PEConfig.from_cli(l=2, e=2, p=5),
-                   data_graph).offline().build_index(packed=False)
+    from gnnpe_tpu.io.datasets import powerlaw_graph, sample_query
+    from gnnpe_tpu.match.filter import pe_candidates
+    from gnnpe_tpu.match.plan import greedy_path_cover
+    from gnnpe_tpu.paths.enumerate import enumerate_paths
+    g = powerlaw_graph(1500, 6000, 4, seed=1, max_degree=64)
+    q = sample_query(g, 8, tree=True, seed=0)
+    cfg = PEConfig.from_cli(l=2, e=2, p=5)
+    eng = PEEngine(cfg, g).offline()
+    eng.vertices = eng.embedder(g)
+    qp, _ = enumerate_paths(q, np.arange(q.num_vertices),
+                            cfg.path_length, dedup=True)
+    q_pde, w, _ = gen_query_pde_table(eng.embedder(q), qp)
+    plan = greedy_path_cover(qp, w, q.num_vertices)
+    want = pe_candidates(gen_pde(eng.vertices, eng.paths), q_pde, plan,
+                         q.num_vertices, epsilon=cfg.epsilon)
+    assert sum(len(c) for c in want) > 0
+
+    def check(got):
+        assert len(got) == len(want)
+        for a, c in zip(got, want):
+            np.testing.assert_array_equal(np.asarray(a), c)
+
     mesh = make_mesh(8, axes=("graph",), shape=(8,))
     n, b = 8, 16
-    eng.sharded = DevicePackedPESearch.build_from_paths(
+    idx = DevicePackedPESearch.build_from_paths(
         mesh, eng.paths, eng.vertices, block_size=b, resident=False)
-    k = eng.sharded.k_chunk
+    k = idx.k_chunk
     l = eng.paths.shape[1]
-    assert eng.sharded.nb_local > 2 * k, \
+    assert idx.nb_local > 2 * k, \
         "fixture too small: eviction not exercised"
     monkeypatch.setenv("GNNPE_CACHE_BYTES", str(2 * k * n * b * l * 4))
-    r = eng.online(query_graph, engine="python", union="host")
-    assert r.answer_count == golden_meta["pe"]["answer_number"]
-    st = dict(eng.sharded.last_stats)
-    assert st["cache_misses"] > 0 and st["cache_hits"] == 0
-    cache = eng.sharded._cache
+    check(idx.search(q_pde, plan, q.num_vertices, union="host"))
+    st = dict(idx.last_stats)
+    cache = idx._cache
     assert cache.capacity == 2 * k
-    # Repeat query: recently-used blocks must hit (eviction may have
-    # dropped early chunks, but the last chunks stay resident).
-    r2 = eng.online(query_graph, engine="python", union="host")
-    st2 = dict(eng.sharded.last_stats)
-    assert st2["cache_hits"] > 0
-    assert r2.answer_count == r.answer_count
-    # Device-bitmap union through the cache == host union.
-    rd = eng.online(query_graph, engine="python", union="device")
-    for a, c in zip(r.candidates, rd.candidates):
-        np.testing.assert_array_equal(np.asarray(a), np.asarray(c))
-    assert rd.answer_count == r.answer_count
+    assert st["cache_hits"] == 0
+    assert st["cache_misses"] > n * cache.capacity, "no eviction"
+    # Repeat query: recently-used blocks must hit (eviction dropped
+    # early chunks, but the last chunks stay resident).
+    check(idx.search(q_pde, plan, q.num_vertices, union="host"))
+    assert idx.last_stats["cache_hits"] > 0
+    # Device-bitmap union through the cache == oracle.
+    check(idx.search(q_pde, plan, q.num_vertices, union="device"))
     # Cache disabled: per-chunk upload fallback, both unions.
     monkeypatch.setenv("GNNPE_STREAM_CACHE", "0")
-    eng.sharded._cache = None
-    rs = eng.online(query_graph, engine="python", union="host")
-    assert eng.sharded._cache is False       # disabled sentinel
-    assert "cache_hits" not in eng.sharded.last_stats
-    assert rs.answer_count == r.answer_count
-    rsd = eng.online(query_graph, engine="python", union="device")
-    for a, c in zip(r.candidates, rsd.candidates):
-        np.testing.assert_array_equal(np.asarray(a), np.asarray(c))
+    idx._cache = None
+    check(idx.search(q_pde, plan, q.num_vertices, union="host"))
+    assert idx._cache is False       # disabled sentinel
+    assert "cache_hits" not in idx.last_stats
+    check(idx.search(q_pde, plan, q.num_vertices, union="device"))
 
 
 def test_streamed_cache_prefill(data_graph, query_graph, golden_meta,
